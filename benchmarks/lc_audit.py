@@ -42,7 +42,7 @@ def log(*a):
 def _edge_errors(Z, Tg1, Tg2):
     """Measurement Z vs ground-truth pair (both edge directions tried;
     the caller calibrates direction on sequential edges)."""
-    from slam3d_gx_tpu.geometry import se3
+    from slam3d_gx.geometry import se3
 
     gt_rel = se3.inverse(Tg1) @ Tg2
     E = se3.inverse(Z) @ gt_rel
@@ -62,8 +62,8 @@ def audit(datadir: str, gt_poses, close_t: float = 0.3,
     walk edges added at finalize (src/GraphicEnd.cpp:864-947) — edge
     measurements are untouched by the optimize that precedes saving, so
     the same scoring applies."""
-    from slam3d_gx_tpu.geometry import se3
-    from slam3d_gx_tpu.io import g2o_io, tum
+    from slam3d_gx.geometry import se3
+    from slam3d_gx.io import g2o_io, tum
 
     kf_rows = tum.read_keyframes(os.path.join(datadir, "keyframe.txt"))
     frame_of = {vid: fidx for vid, fidx in kf_rows}
@@ -154,7 +154,7 @@ def main(argv=None) -> int:
     traj_name = argv[2] if len(argv) > 2 else "multi_loop"
     graph = argv[3] if len(argv) > 3 else "final.g2o"
 
-    from slam3d_gx_tpu.testing import synthetic
+    from slam3d_gx.testing import synthetic
 
     makers = {"multi_loop": synthetic.multi_loop_trajectory,
               "orbit": synthetic.orbit_trajectory}

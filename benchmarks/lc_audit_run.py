@@ -10,7 +10,8 @@ ground truth with benchmarks/lc_audit.py. This turns the round-3
 
 Usage: lc_audit_run.py [n_frames=300] [chunk=16] [height=240] [width=320]
 Env: LCA_MPC (0.08), LCA_DETECTOR (GFTT), LCA_MAXKP (384),
-     LCA_HYP (128), LCA_MODES ("0,1"), LCA_PLATFORM (probe->cpu default)
+     LCA_HYP (128), LCA_MODES ("0,1"); SLAM3D_PLATFORM=cpu|gpu forces
+     the backend.
 """
 
 from __future__ import annotations
@@ -45,18 +46,14 @@ def main(argv=None) -> int:
     modes = os.environ.get("LCA_MODES", "0,1").split(",")
     max_drift = os.environ.get("LCA_MAXDRIFT", "0")
 
-    from slam3d_gx_tpu.utils.platform import ensure_backend_or_cpu
-
-    ensure_backend_or_cpu("LCA_PLATFORM", log=log)
-
-    import slam3d_gx_tpu  # noqa: F401  (applies SLAM3D_PLATFORM)
+    import slam3d_gx  # noqa: F401  (applies SLAM3D_PLATFORM)
     import jax
 
-    from slam3d_gx_tpu.backend import SLAMEnd
-    from slam3d_gx_tpu.config import CameraIntrinsics, ParameterReader
-    from slam3d_gx_tpu.frontend.streaming import StreamingGraphicEnd
-    from slam3d_gx_tpu.testing import synthetic
-    from slam3d_gx_tpu.utils import compile_cache
+    from slam3d_gx.backend import SLAMEnd
+    from slam3d_gx.config import CameraIntrinsics, ParameterReader
+    from slam3d_gx.frontend.streaming import StreamingGraphicEnd
+    from slam3d_gx.testing import synthetic
+    from slam3d_gx.utils import compile_cache
 
     compile_cache.enable(jax)
     log(f"backend: {jax.default_backend()}")
@@ -108,7 +105,7 @@ def main(argv=None) -> int:
             # keyframe.txt, written directly below
             ge.save_final_result()
         else:
-            from slam3d_gx_tpu.io import tum as _tum
+            from slam3d_gx.io import tum as _tum
 
             _tum.write_keyframes(
                 os.path.join(datadir, "keyframe.txt"),

@@ -59,18 +59,18 @@ def main(argv=None) -> int:
 
     import jax
 
-    from slam3d_gx_tpu.utils import compile_cache
+    from slam3d_gx.utils import compile_cache
 
     compile_cache.enable(jax)
 
-    from slam3d_gx_tpu.backend import SLAMEnd
-    from slam3d_gx_tpu.cli import generate_trajectory
-    from slam3d_gx_tpu.config import CameraIntrinsics, ParameterReader
-    from slam3d_gx_tpu.frontend.streaming import (
+    from slam3d_gx.backend import SLAMEnd
+    from slam3d_gx.cli import generate_trajectory
+    from slam3d_gx.config import CameraIntrinsics, ParameterReader
+    from slam3d_gx.frontend.streaming import (
         StreamingGraphicEnd, StreamingGraphicEnd2)
-    from slam3d_gx_tpu.geometry import se3
-    from slam3d_gx_tpu.io import tum
-    from slam3d_gx_tpu.testing import synthetic
+    from slam3d_gx.geometry import se3
+    from slam3d_gx.io import tum
+    from slam3d_gx.testing import synthetic
 
     intr = CameraIntrinsics(fx=517.0, fy=517.0, cx=318.6, cy=255.3,
                             factor=5000.0)
@@ -106,18 +106,6 @@ def main(argv=None) -> int:
     cls = StreamingGraphicEnd if kind == "planes" else StreamingGraphicEnd2
     ge = cls(params, data_dir=datadir, chunk=chunk)
     slam = SLAMEnd()
-    if os.environ.get("LONG_PARWARM", "1") == "1":
-        # resolve the sibling module by path: sys.path[0] is only
-        # benchmarks/ when this file is executed directly
-        import importlib.util
-
-        spec = importlib.util.spec_from_file_location(
-            "streaming_wall",
-            os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "streaming_wall.py"))
-        streaming_wall = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(streaming_wall)
-        streaming_wall.warm_compiles_parallel(ge, chunk, kind, log)
     t0 = time.time()
     ge.init(slam)
     slam.init(ge)
@@ -143,7 +131,7 @@ def main(argv=None) -> int:
     ge.opt.optimize(ge.params.get_int("optimize_step"))
     t_opt = time.time() - t0
     t0 = time.time()
-    from slam3d_gx_tpu.io import tum as _tum
+    from slam3d_gx.io import tum as _tum
     _tum.write_keyframes(
         os.path.join(datadir, "keyframe.txt"),
         [(kf.id, kf.frame_index) for kf in ge.keyframes])
@@ -192,7 +180,7 @@ def main(argv=None) -> int:
 
     t_fuse = None
     if os.environ.get("LONG_FUSE", "1") == "1":
-        from slam3d_gx_tpu.cli import save_output
+        from slam3d_gx.cli import save_output
 
         t0 = time.time()
         save_output.fuse_map(

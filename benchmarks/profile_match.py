@@ -40,10 +40,10 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    from slam3d_gx_tpu.utils import compile_cache
+    from slam3d_gx.utils import compile_cache
 
     compile_cache.enable(jax)
-    from slam3d_gx_tpu.ops import match
+    from slam3d_gx.ops import match
 
     log(f"match profile: B={B} K={K} D={D} on "
         f"{jax.devices()[0].platform}")

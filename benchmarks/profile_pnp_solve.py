@@ -40,10 +40,10 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    from slam3d_gx_tpu.utils import compile_cache
+    from slam3d_gx.utils import compile_cache
 
     compile_cache.enable(jax)
-    from slam3d_gx_tpu.ops import pnp
+    from slam3d_gx.ops import pnp
 
     fx = fy = 517.0
     cx, cy = 318.6, 255.3

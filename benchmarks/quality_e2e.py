@@ -43,20 +43,20 @@ def main(argv=None) -> int:
 
     if os.environ.get("QUALITY_PLATFORM"):
         # ATE/RPE are platform-independent; CPU runs produce the same
-        # quality table when the TPU is busy (FPS is measured elsewhere)
+        # quality table (FPS is measured elsewhere)
         jax.config.update("jax_platforms", os.environ["QUALITY_PLATFORM"])
 
-    from slam3d_gx_tpu.utils import compile_cache
+    from slam3d_gx.utils import compile_cache
 
     compile_cache.enable(jax)
 
-    from slam3d_gx_tpu.backend import SLAMEnd
-    from slam3d_gx_tpu.cli import generate_trajectory
-    from slam3d_gx_tpu.config import CameraIntrinsics, ParameterReader
-    from slam3d_gx_tpu.frontend import GraphicEnd
-    from slam3d_gx_tpu.geometry import se3
-    from slam3d_gx_tpu.io import tum
-    from slam3d_gx_tpu.testing import synthetic
+    from slam3d_gx.backend import SLAMEnd
+    from slam3d_gx.cli import generate_trajectory
+    from slam3d_gx.config import CameraIntrinsics, ParameterReader
+    from slam3d_gx.frontend import GraphicEnd
+    from slam3d_gx.geometry import se3
+    from slam3d_gx.io import tum
+    from slam3d_gx.testing import synthetic
 
     intr = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0,
                             factor=5000.0)

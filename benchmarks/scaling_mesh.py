@@ -4,7 +4,7 @@
 Weak scaling over the dp/sp axes: per-device work is held constant
 while the mesh grows, so ideal scaling is FLAT wall time per round (the
 fan-outs are embarrassingly parallel; lcdb adds one replicated-query
-broadcast). On real multi-chip hardware this measures ICI overhead; on
+broadcast). On real multi-device hardware this measures collective overhead; on
 a virtual CPU mesh it validates the SPMD programs and measures the
 partitioning overhead — on a single-core host (this container) the
 devices serialize, so expect ~linear time growth there, NOT a
@@ -41,10 +41,10 @@ def main(argv=None) -> int:
     p.add_argument("--kp", type=int, default=128)
     args = p.parse_args(argv)
 
-    from slam3d_gx_tpu.config import CameraIntrinsics
-    from slam3d_gx_tpu.frontend.state import FrameFeatures
-    from slam3d_gx_tpu.geometry import se3
-    from slam3d_gx_tpu.parallel import lcdb, mesh as mesh_mod, registration
+    from slam3d_gx.config import CameraIntrinsics
+    from slam3d_gx.frontend.state import FrameFeatures
+    from slam3d_gx.geometry import se3
+    from slam3d_gx.parallel import lcdb, mesh as mesh_mod, registration
 
     intr = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0,
                             factor=5000.0)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Reference-protocol pairwise registration sweep, TPU-native layout.
+"""Reference-protocol pairwise registration sweep, batched on device.
 
 Protocol parity: reference exp1_2.py:14-27 — 100 random anchors x
 offsets 1..19, planar and normal modes, error rows in the
@@ -12,7 +12,7 @@ ONCE and all registrations run as batched device programs
 Usage: sweep_pairs.py [--frames N] [--anchors A] [--offsets K]
                       [--modes pn] [--detector D] [--out DIR]
 Env: SWEEP_PLATFORM=cpu forces the CPU mesh (default: whatever JAX
-picks — the TPU when available).
+picks — the GPU when available).
 """
 
 from __future__ import annotations
@@ -55,12 +55,12 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="./data/exp1")
     args = p.parse_args(argv)
 
-    from slam3d_gx_tpu.config import CameraIntrinsics
-    from slam3d_gx_tpu.geometry import se3
-    from slam3d_gx_tpu.frontend import pipeline
-    from slam3d_gx_tpu.ops import pointcloud
-    from slam3d_gx_tpu.parallel.registration import BatchedRegistrar
-    from slam3d_gx_tpu.testing import synthetic
+    from slam3d_gx.config import CameraIntrinsics
+    from slam3d_gx.geometry import se3
+    from slam3d_gx.frontend import pipeline
+    from slam3d_gx.ops import pointcloud
+    from slam3d_gx.parallel.registration import BatchedRegistrar
+    from slam3d_gx.testing import synthetic
 
     h, w = 240, 320
     intr = CameraIntrinsics(fx=260.0, fy=260.0, cx=w / 2, cy=h / 2,

@@ -6,7 +6,7 @@ offsets 1..19, each pair registered with the planar ('p') and normal
 ('n') pipelines, errors appended to data/exp1/error.log by the exp1_2
 binary.
 
-TPU-native default: pairs run in-process (one Python VM, jit caches
+Default: pairs run in-process (one Python VM, jit caches
 reused across pairs — the reference's one-process-per-pair layout would
 recompile the pipeline hundreds of times). `--subprocess` restores the
 reference's process-per-pair behavior.
@@ -46,7 +46,7 @@ def main(argv=None) -> int:
                    help="one process per pair (reference layout)")
     args = p.parse_args(argv)
 
-    from slam3d_gx_tpu.config import ParameterReader
+    from slam3d_gx.config import ParameterReader
 
     params = ParameterReader("./parameters.yaml")
     n_frames = count_frames(params.GetPara("data_source"))
@@ -68,7 +68,7 @@ def main(argv=None) -> int:
                     check=False,
                 )
     else:
-        from slam3d_gx_tpu.cli import exp1_2 as exp_cli
+        from slam3d_gx.cli import exp1_2 as exp_cli
         for i, (a, b) in enumerate(pairs):
             for mode in args.modes:
                 rc = exp_cli.main([str(a), str(b), args.detector,

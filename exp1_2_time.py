@@ -31,8 +31,8 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
 
-    from slam3d_gx_tpu.cli import exp1_2 as exp_cli
-    from slam3d_gx_tpu.config import ParameterReader
+    from slam3d_gx.cli import exp1_2 as exp_cli
+    from slam3d_gx.config import ParameterReader
 
     params = ParameterReader("./parameters.yaml")
     with open(os.path.join(params.GetPara("data_source"), "associate.txt")) as f:

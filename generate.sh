@@ -4,5 +4,5 @@
 # environment and run the unit suite).
 set -e
 cd "$(dirname "$0")"
-python3 -c "import jax, slam3d_gx_tpu; print('jax', jax.__version__, 'devices', jax.devices())"
+python3 -c "import jax, slam3d_gx; print('jax', jax.__version__, 'devices', jax.devices())"
 python3 -m pytest tests/ -q "$@"

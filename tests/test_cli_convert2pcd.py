@@ -2,8 +2,8 @@ import os
 
 import numpy as np
 
-from slam3d_gx_tpu.cli import convert2pcd
-from slam3d_gx_tpu.io import pcd
+from slam3d_gx.cli import convert2pcd
+from slam3d_gx.io import pcd
 
 
 def test_convert_one_reproduces_reference_pcd(reference_dir, tmp_path):
@@ -22,7 +22,7 @@ def test_convert_one_reproduces_reference_pcd(reference_dir, tmp_path):
 
 
 def test_main_loop(tmp_path, rng, monkeypatch):
-    from slam3d_gx_tpu.io import images
+    from slam3d_gx.io import images
 
     monkeypatch.chdir(tmp_path)
     os.makedirs("rgb_index")

@@ -13,8 +13,8 @@ import os
 import numpy as np
 import pytest
 
-from slam3d_gx_tpu.config import CameraIntrinsics, ParameterReader
-from slam3d_gx_tpu.io import images
+from slam3d_gx.config import CameraIntrinsics, ParameterReader
+from slam3d_gx.io import images
 
 # the exp1 fixtures predate the fr1 preset: factor-1000 depth with
 # convert2PCD intrinsics (src/convert2PCD.cpp:19-23)
@@ -34,7 +34,7 @@ def test_planar_features_real_fixture(real_frame):
     """classify_planar on real Kinect pixels: both classes must be
     populated — an office scene has walls/desk (planar) and clutter
     edges (non-planar) — and planar must imply a valid keypoint."""
-    from slam3d_gx_tpu.cli.planar_features import classify_planar
+    from slam3d_gx.cli.planar_features import classify_planar
 
     gray, depth = real_frame
     kps, planar = classify_planar(gray, depth, INTR, max_kp=256)
@@ -51,7 +51,7 @@ def test_planar_features_cli_main(reference_dir, tmp_path, monkeypatch,
     """The CLI entry point runs headless end-to-end and writes the
     visualization PNG (the reference shows an imshow window instead —
     documented delta)."""
-    from slam3d_gx_tpu.cli import planar_features
+    from slam3d_gx.cli import planar_features
 
     base = os.path.join(reference_dir, "data", "exp1")
     monkeypatch.chdir(tmp_path)
@@ -69,7 +69,7 @@ def test_view_lc_tolerates_missing_frames_and_short_rows(tmp_path, capsys):
     frames are missing on disk without dying, and accept both the
     canonical 4-column rows (src/GraphicEnd.cpp:861) and older
     3-column files."""
-    from slam3d_gx_tpu.cli.view_lc import view
+    from slam3d_gx.cli.view_lc import view
 
     root = tmp_path / "ds"
     rgb = root / "rgb_index"

@@ -1,6 +1,6 @@
 import pytest
 
-from slam3d_gx_tpu import config
+from slam3d_gx import config
 
 
 def test_defaults_cover_reference_keys():

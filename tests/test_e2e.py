@@ -10,11 +10,11 @@ import os
 import numpy as np
 import pytest
 
-from slam3d_gx_tpu.backend import SLAMEnd
-from slam3d_gx_tpu.config import CameraIntrinsics, ParameterReader
-from slam3d_gx_tpu.geometry import se3
-from slam3d_gx_tpu.io import pcd as pcd_io, tum
-from slam3d_gx_tpu.testing import synthetic
+from slam3d_gx.backend import SLAMEnd
+from slam3d_gx.config import CameraIntrinsics, ParameterReader
+from slam3d_gx.geometry import se3
+from slam3d_gx.io import pcd as pcd_io, tum
+from slam3d_gx.testing import synthetic
 
 INTR = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
 N_FRAMES = 12
@@ -43,7 +43,7 @@ def make_params(root, **kw):
 
 @pytest.fixture(scope="module")
 def imageonly_run(dataset, tmp_path_factory):
-    from slam3d_gx_tpu.frontend import GraphicEnd2
+    from slam3d_gx.frontend import GraphicEnd2
 
     root, traj = dataset
     datadir = str(tmp_path_factory.mktemp("data_img"))
@@ -75,7 +75,7 @@ def test_imageonly_artifacts(imageonly_run):
     kf = tum.read_keyframes(os.path.join(datadir, "keyframe.txt"))
     assert [k for k, _ in kf] == list(range(len(ge.keyframes)))
     # pre- and post-optimization graphs parse
-    from slam3d_gx_tpu.io import g2o_io
+    from slam3d_gx.io import g2o_io
 
     g_pre = g2o_io.load_g2o(os.path.join(datadir, "final.g2o"))
     g_post = g2o_io.load_g2o(os.path.join(datadir, "final_after.g2o"))
@@ -85,7 +85,7 @@ def test_imageonly_artifacts(imageonly_run):
 
 
 def test_generate_trajectory_cli(imageonly_run):
-    from slam3d_gx_tpu.cli import generate_trajectory
+    from slam3d_gx.cli import generate_trajectory
 
     ge, slam, datadir, traj, root = imageonly_run
     out = os.path.join(datadir, "trajectory.txt")
@@ -105,7 +105,7 @@ def test_generate_trajectory_cli(imageonly_run):
 
 
 def test_planes_pipeline_e2e(dataset, tmp_path_factory):
-    from slam3d_gx_tpu.frontend import GraphicEnd
+    from slam3d_gx.frontend import GraphicEnd
 
     root, traj = dataset
     datadir = str(tmp_path_factory.mktemp("data_planes"))
@@ -139,7 +139,7 @@ def test_planes_pipeline_splat_and_voxel_knobs(dataset, tmp_path_factory):
     restores the reference's point splatting (src/GraphicEnd.cpp:390-420)
     and voxel_downsample_clouds=1 restores its VoxelGrid(grid_leaf)
     downsample before plane RANSAC (287-295). Both must track."""
-    from slam3d_gx_tpu.frontend import GraphicEnd
+    from slam3d_gx.frontend import GraphicEnd
 
     root, traj = dataset
     datadir = str(tmp_path_factory.mktemp("data_splat"))
@@ -164,7 +164,7 @@ def test_exp1_cli_visual_artifacts(dataset, tmp_path, monkeypatch):
     """exp1 emits headless PNGs for the reference's imshow windows
     (exp1.cpp:388,580,678-682): plane images + per-plane match/inlier
     match images in `p` mode, match/inlier images in `n` mode."""
-    from slam3d_gx_tpu.cli import exp1
+    from slam3d_gx.cli import exp1
 
     root, traj = dataset
     monkeypatch.chdir(tmp_path)
@@ -188,14 +188,14 @@ def test_exp1_cli_visual_artifacts(dataset, tmp_path, monkeypatch):
     rows = open("data/exp1/error.log").read().strip().splitlines()
     assert len(rows) == 2 and all(len(r.split()) == 7 for r in rows)
     # the match canvas is the two 320px frames side by side and non-empty
-    from slam3d_gx_tpu.io import images as img_io
+    from slam3d_gx.io import images as img_io
     m = img_io.load_gray("data/exp1/plane_match_1_2_0.png")
     assert m.shape == (240, 640)
     assert int((m > 0).sum()) > 100
 
 
 def test_save_output_cli(imageonly_run):
-    from slam3d_gx_tpu.cli import save_output
+    from slam3d_gx.cli import save_output
 
     ge, slam, datadir, traj, root = imageonly_run
     out = os.path.join(datadir, "result.pcd")
@@ -217,7 +217,7 @@ def test_save_output_cli(imageonly_run):
 
 
 def test_view_lc_cli(imageonly_run, tmp_path):
-    from slam3d_gx_tpu.cli import view_lc
+    from slam3d_gx.cli import view_lc
 
     ge, slam, datadir, traj, root = imageonly_run
     lc = os.path.join(datadir, "lc.txt")
@@ -234,8 +234,8 @@ def test_eval_protocol_with_tum_tools(imageonly_run, tmp_path_factory):
     import subprocess
     import sys
 
-    from slam3d_gx_tpu.cli import generate_trajectory
-    from slam3d_gx_tpu.geometry import se3
+    from slam3d_gx.cli import generate_trajectory
+    from slam3d_gx.geometry import se3
 
     ge, slam, datadir, traj, root = imageonly_run
     out = str(tmp_path_factory.mktemp("eval"))
@@ -280,7 +280,7 @@ def test_bulk_scan_verdicts_match_single_pair(imageonly_run):
     scan (graphic_end._scan_source); each cached verdict must agree
     with a direct single-pair registration (the sequential fallback
     path, graphic_end.check) — same pair order, same gates."""
-    from slam3d_gx_tpu.frontend.state import result_to_host
+    from slam3d_gx.frontend.state import result_to_host
 
     ge = imageonly_run[0]
     items = list(ge._check_cache.items())
@@ -317,7 +317,7 @@ def test_finalize_prefilter_edge_equivalence(dataset, tmp_path_factory):
     EXACTLY the exact-scan run's (same seed -> same key sequence ->
     same verdicts); with a tight limit the pre-filter must actually
     prune registrations while keeping every keyframe constrained."""
-    from slam3d_gx_tpu.frontend import GraphicEnd2
+    from slam3d_gx.frontend import GraphicEnd2
 
     root, traj = dataset
 

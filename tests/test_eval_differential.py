@@ -47,7 +47,7 @@ def make_trajectories(n=60, hz=30.0, seed=5):
     t = np.arange(n) / hz + rng.normal(0, 1e-3, n) + 1_300_000_000.0
     gt, est = {}, {}
     T = np.eye(4)
-    from slam3d_gx_tpu.geometry import se3
+    from slam3d_gx.geometry import se3
 
     for i in range(n):
         w = rng.normal(0, 0.03, 3)
@@ -95,7 +95,7 @@ def test_read_trajectory_matches_reference(ref_rpe, tmp_path):
     with open(p, "w") as f:
         f.write("# comment line\n")
         for ts, T in gt.items():
-            from slam3d_gx_tpu.geometry import se3
+            from slam3d_gx.geometry import se3
 
             q = se3.rot_to_quat(T[:3, :3])
             tx, ty, tz = T[:3, 3]

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from slam3d_gx_tpu.ops.features import common, fast, harris, sift_desc
+from slam3d_gx.ops.features import common, fast, harris, sift_desc
 
 
 def checkerboard(h=120, w=160, sq=20):
@@ -126,7 +126,7 @@ def test_descriptors_match_across_views(rng):
     """Integration: GFTT+SIFT descriptors match between a frame and its
     translated copy via NN matching."""
     from scipy.ndimage import gaussian_filter, shift as ndshift
-    from slam3d_gx_tpu.ops import match
+    from slam3d_gx.ops import match
 
     img = gaussian_filter((rng.random((120, 160)) * 255), 1.5).astype(np.float32)
     img2 = ndshift(img, (4, 7), order=1, mode="nearest")
@@ -155,10 +155,10 @@ def test_descriptors_match_across_views(rng):
 
 def test_descriptor_dim_matches_descriptor_output():
     """registry.descriptor_dim must agree with the (K,D) shape each
-    create_descriptor function actually returns — compile warming
-    (benchmarks/streaming_wall.warm_compiles_parallel) builds dummy
-    features from it, and a mismatch silently wastes the entire warm."""
-    from slam3d_gx_tpu.ops.features import registry
+    create_descriptor function actually returns — shape-exact dummy
+    features (state.empty_frame) are built from it, and a mismatch
+    compiles a second program for the real ones."""
+    from slam3d_gx.ops.features import registry
 
     img = jnp.asarray(checkerboard())
     for name in ("SIFT", "SURF", "SURF_SIFT", "ORB"):

@@ -2,8 +2,8 @@ import io
 
 import numpy as np
 
-from slam3d_gx_tpu.geometry import se3
-from slam3d_gx_tpu.io import g2o_io
+from slam3d_gx.geometry import se3
+from slam3d_gx.io import g2o_io
 
 
 def make_graph(rng):

@@ -88,7 +88,7 @@ def test_prepare_chain_outputs(prepared_dataset):
         assert os.path.exists(os.path.join(root, "dep_index", f"{i}.png"))
         assert os.path.exists(os.path.join(root, "pcd", f"{i}.pcd"))
     # the PCDs parse and hold a real cloud
-    from slam3d_gx_tpu.io import pcd as pcd_io
+    from slam3d_gx.io import pcd as pcd_io
 
     xyz, rgba = pcd_io.read_pcd(os.path.join(root, "pcd", "1.pcd"))
     assert xyz.shape[0] > 50_000

@@ -13,10 +13,10 @@ is how the original (wrong) convention slipped past orbit-only tests.
 
 import numpy as np
 
-from slam3d_gx_tpu.config import ParameterReader
-from slam3d_gx_tpu.frontend.graphic_end import GraphicEnd
-from slam3d_gx_tpu.frontend.state import Keyframe
-from slam3d_gx_tpu.geometry import se3
+from slam3d_gx.config import ParameterReader
+from slam3d_gx.frontend.graphic_end import GraphicEnd
+from slam3d_gx.frontend.state import Keyframe
+from slam3d_gx.geometry import se3
 
 
 class _GateHost:

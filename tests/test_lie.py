@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 from scipy.spatial.transform import Rotation
 
-from slam3d_gx_tpu.geometry import se3
-from slam3d_gx_tpu.ops import lie
+from slam3d_gx.geometry import se3
+from slam3d_gx.ops import lie
 
 
 def test_rodrigues_matches_host(rng):

@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from slam3d_gx_tpu.backend import SLAMEnd
-from slam3d_gx_tpu.config import CameraIntrinsics, ParameterReader
-from slam3d_gx_tpu.io import images
-from slam3d_gx_tpu.testing import synthetic
+from slam3d_gx.backend import SLAMEnd
+from slam3d_gx.config import CameraIntrinsics, ParameterReader
+from slam3d_gx.io import images
+from slam3d_gx.testing import synthetic
 
 INTR = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
 N = 14
@@ -44,7 +44,7 @@ def _params(root, **kw):
 
 
 def test_blackout_triggers_lost_recovery(dataset_with_blackout, tmp_path_factory):
-    from slam3d_gx_tpu.frontend import GraphicEnd2
+    from slam3d_gx.frontend import GraphicEnd2
 
     root, traj = dataset_with_blackout
     datadir = str(tmp_path_factory.mktemp("data_lost"))
@@ -81,7 +81,7 @@ def test_blackout_triggers_lost_recovery(dataset_with_blackout, tmp_path_factory
 
 
 def test_odometry_mode_adds_odometry_edges(dataset_with_blackout, tmp_path_factory):
-    from slam3d_gx_tpu.frontend import GraphicEnd2
+    from slam3d_gx.frontend import GraphicEnd2
 
     root, traj = dataset_with_blackout
     datadir = str(tmp_path_factory.mktemp("data_odo"))
@@ -112,7 +112,7 @@ def test_odometry_mode_adds_odometry_edges(dataset_with_blackout, tmp_path_facto
 def test_scored_loop_closure_mode(dataset_with_blackout, tmp_path_factory):
     """loop_closure_scored=1: candidates come from the keyframe database
     (parallel/lcdb.py) instead of random draws; loops still close."""
-    from slam3d_gx_tpu.frontend import GraphicEnd2
+    from slam3d_gx.frontend import GraphicEnd2
 
     root, traj = dataset_with_blackout
     datadir = str(tmp_path_factory.mktemp("data_scored"))
@@ -138,7 +138,7 @@ def test_rescue_with_last_promotes_both(tmp_path_factory):
     """GraphicEnd's lost branch: when the stale keyframe no longer
     matches but the previous ordinary frame does, BOTH are promoted
     (reference src/GraphicEnd.cpp:183-227)."""
-    from slam3d_gx_tpu.frontend import GraphicEnd
+    from slam3d_gx.frontend import GraphicEnd
 
     root = str(tmp_path_factory.mktemp("rescue"))
     scene = synthetic.RoomScene(seed=7)

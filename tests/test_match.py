@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from slam3d_gx_tpu.ops import match
+from slam3d_gx.ops import match
 
 
 def test_l2_distance_matrix(rng):

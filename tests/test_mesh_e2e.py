@@ -15,9 +15,9 @@ import os
 
 import pytest
 
-from slam3d_gx_tpu.backend import SLAMEnd
-from slam3d_gx_tpu.config import CameraIntrinsics, ParameterReader
-from slam3d_gx_tpu.testing import synthetic
+from slam3d_gx.backend import SLAMEnd
+from slam3d_gx.config import CameraIntrinsics, ParameterReader
+from slam3d_gx.testing import synthetic
 
 INTR = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
 N_FRAMES = 12
@@ -45,7 +45,7 @@ def make_params(root, **kw):
 
 
 def run_slam(root, datadir, mesh_devices, **kw):
-    from slam3d_gx_tpu.frontend import GraphicEnd2
+    from slam3d_gx.frontend import GraphicEnd2
 
     ge = GraphicEnd2(
         make_params(root, mesh_devices=mesh_devices, **kw),
@@ -114,7 +114,7 @@ def test_mesh_streaming_e2e(dataset, tmp_path_factory):
     """run_SLAM_streaming's frontend under the mesh: the chunked
     tracker is single-device by design, but its loop-closure rounds
     drain through the dp-sharded verifier."""
-    from slam3d_gx_tpu.frontend.streaming import StreamingGraphicEnd2
+    from slam3d_gx.frontend.streaming import StreamingGraphicEnd2
 
     root, traj = dataset
     d = str(tmp_path_factory.mktemp("mesh_stream"))

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from slam3d_gx_tpu import native_io
-from slam3d_gx_tpu.io import images, pcd as pcd_io
+from slam3d_gx import native_io
+from slam3d_gx.io import images, pcd as pcd_io
 
 pytestmark = pytest.mark.skipif(
     not native_io.available(), reason="native library not built")

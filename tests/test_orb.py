@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from slam3d_gx_tpu.ops import match
-from slam3d_gx_tpu.ops.features import orb, registry
-from slam3d_gx_tpu.testing import synthetic
-from slam3d_gx_tpu.config import CameraIntrinsics
-from slam3d_gx_tpu.geometry import se3
+from slam3d_gx.ops import match
+from slam3d_gx.ops.features import orb, registry
+from slam3d_gx.testing import synthetic
+from slam3d_gx.config import CameraIntrinsics
+from slam3d_gx.geometry import se3
 
 INTR = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
 
@@ -87,7 +87,7 @@ def test_orientation_consistency():
     sm = ndi.gaussian_filter(base, 3.0)
     rot = ndi.rotate(sm, angle=30.0, reshape=False, order=1, mode="nearest")
 
-    from slam3d_gx_tpu.ops.features.common import Keypoints
+    from slam3d_gx.ops.features.common import Keypoints
     uv = jnp.asarray([[160.0, 120.0]], jnp.float32)
     kp = Keypoints(uv=uv, response=jnp.ones(1), size=jnp.full((1,), 7.0),
                    angle=jnp.zeros(1), valid=jnp.ones(1, bool))

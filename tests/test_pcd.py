@@ -3,7 +3,7 @@ import os
 import numpy as np
 import pytest
 
-from slam3d_gx_tpu.io import pcd
+from slam3d_gx.io import pcd
 
 
 def test_read_reference_binary_fixture(reference_dir):

@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from slam3d_gx_tpu.ops import plane_ransac
+from slam3d_gx.ops import plane_ransac
 
 
 def make_scene(rng, n_noise=200):

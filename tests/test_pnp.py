@@ -1,10 +1,12 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 from scipy.spatial.transform import Rotation
 
-from slam3d_gx_tpu.geometry import se3
-from slam3d_gx_tpu.ops import pnp, polynomial
+from slam3d_gx.geometry import se3
+from slam3d_gx.ops import pnp, polynomial
+from slam3d_gx.testing import oracles
 
 FX = FY = 517.0
 CX, CY = 318.6, 255.3
@@ -28,6 +30,17 @@ def test_quartic_complex_pairs():
     r = np.asarray(polynomial.quartic_roots(c))[0]
     real = r[np.abs(r.imag) < 1e-3].real
     np.testing.assert_allclose(np.sort(real), [2.0, 3.0], atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", sorted(oracles.QUARTIC_TOLERANCES))
+def test_quartic_roots_match_np_roots(kind):
+    coeffs = oracles.quartic_cases(kind, 1024, np.random.default_rng(5))
+    got = np.asarray(polynomial.quartic_roots(jnp.asarray(coeffs)))
+    assert np.isfinite(got).all()
+    err = oracles.quartic_root_error(coeffs, got)
+    median_tol, p99_tol = oracles.QUARTIC_TOLERANCES[kind]
+    assert np.median(err) <= median_tol, np.median(err)
+    assert np.quantile(err, 0.99) <= p99_tol, np.quantile(err, 0.99)
 
 
 def make_scene(rng, n=100, planar=False, angle_scale=0.3, t_scale=0.3):

@@ -3,8 +3,8 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from slam3d_gx_tpu.io import images, pcd
-from slam3d_gx_tpu.ops import pointcloud
+from slam3d_gx.io import images, pcd
+from slam3d_gx.ops import pointcloud
 
 
 def test_backproject_matches_reference_fixture(reference_dir):
@@ -38,7 +38,7 @@ def test_passthrough(rng):
 
 
 def test_transform_points(rng):
-    from slam3d_gx_tpu.geometry import se3
+    from slam3d_gx.geometry import se3
     from scipy.spatial.transform import Rotation
 
     R = Rotation.random(random_state=np.random.RandomState(3)).as_matrix()

@@ -1,8 +1,8 @@
 import numpy as np
 from scipy.spatial.transform import Rotation
 
-from slam3d_gx_tpu.backend import PoseGraphOptimizer, SLAMEnd
-from slam3d_gx_tpu.geometry import se3
+from slam3d_gx.backend import PoseGraphOptimizer, SLAMEnd
+from slam3d_gx.geometry import se3
 
 
 def random_pose(rng, rot_scale=0.5, t_scale=1.0):

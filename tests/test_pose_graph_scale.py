@@ -9,7 +9,7 @@ past 117 keyframes; these tests drive the matrix-free CG LM at
 import numpy as np
 import pytest
 
-from slam3d_gx_tpu.testing.posegraph import graph_ate, make_loopy_graph
+from slam3d_gx.testing.posegraph import graph_ate, make_loopy_graph
 
 
 @pytest.mark.slow

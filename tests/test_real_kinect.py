@@ -17,10 +17,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slam3d_gx_tpu.config import CameraIntrinsics
-from slam3d_gx_tpu.io import images
-from slam3d_gx_tpu.frontend import pipeline
-from slam3d_gx_tpu.cli.exp1_2 import _load_cloud
+from slam3d_gx.config import CameraIntrinsics
+from slam3d_gx.io import images
+from slam3d_gx.frontend import pipeline
+from slam3d_gx.cli.exp1_2 import _load_cloud
 
 INTR = CameraIntrinsics(fx=525.0, fy=525.0, cx=319.5, cy=235.5,
                         factor=1000.0)
@@ -87,7 +87,7 @@ def test_detectors_agree_on_real_pair(real_pair):
 def test_planar_features_on_real_frame(reference_dir):
     """planarFeatures classifies FAST keypoints on the shipped Kinect
     frame (reference src/planarFeatures.cpp demo input bin/rgb_1.png)."""
-    from slam3d_gx_tpu.cli.planar_features import classify_planar
+    from slam3d_gx.cli.planar_features import classify_planar
 
     gray = images.load_gray(os.path.join(reference_dir, "bin", "rgb_1.png"))
     depth = images.load_depth(os.path.join(reference_dir, "bin", "dep_1.png"))
@@ -101,8 +101,8 @@ def test_planar_features_on_real_frame(reference_dir):
 def test_scale_alignment_detects_factor_mismatch(reference_dir):
     """Reading the same fixtures with the fr1 preset (factor 5000) must
     report the 5x cloud/depth scale mismatch."""
-    from slam3d_gx_tpu.io import pcd
-    from slam3d_gx_tpu.ops import pointcloud
+    from slam3d_gx.io import pcd
+    from slam3d_gx.ops import pointcloud
 
     base = os.path.join(reference_dir, "data", "exp1")
     xyz, _ = pcd.read_pcd(os.path.join(base, "pcd", "1.pcd"))

@@ -2,7 +2,7 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation
 
-from slam3d_gx_tpu.geometry import se3
+from slam3d_gx.geometry import se3
 
 
 def random_rotations(n, rng):

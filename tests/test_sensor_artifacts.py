@@ -10,9 +10,9 @@ and (b) the full SLAM loop still tracks on an artifact-laden dataset.
 import numpy as np
 import pytest
 
-from slam3d_gx_tpu.backend import SLAMEnd
-from slam3d_gx_tpu.config import CameraIntrinsics, ParameterReader
-from slam3d_gx_tpu.testing import synthetic
+from slam3d_gx.backend import SLAMEnd
+from slam3d_gx.config import CameraIntrinsics, ParameterReader
+from slam3d_gx.testing import synthetic
 
 INTR = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
 N_FRAMES = 12
@@ -85,7 +85,7 @@ def test_artifact_gray_untouched_shape_and_vignette():
 def test_slam_tracks_through_kinect_artifacts(tmp_path_factory):
     """Full image-only SLAM on an artifact-laden dataset: tracking must
     survive dropout holes and range-dependent depth noise."""
-    from slam3d_gx_tpu.frontend import GraphicEnd2
+    from slam3d_gx.frontend import GraphicEnd2
 
     root = str(tmp_path_factory.mktemp("kinect_room"))
     scene = synthetic.RoomScene(seed=3)
@@ -130,7 +130,7 @@ def test_planes_pipeline_tracks_through_kinect_artifacts(
     inlier counts. PCDs here are backprojected from the ARTIFACT depth,
     so plane extraction sees the holes too.
     """
-    from slam3d_gx_tpu.frontend import GraphicEnd
+    from slam3d_gx.frontend import GraphicEnd
 
     root = str(tmp_path_factory.mktemp("kinect_planes_room"))
     scene = synthetic.RoomScene(seed=3)

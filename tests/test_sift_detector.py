@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from slam3d_gx_tpu.ops.features import dog, registry
+from slam3d_gx.ops.features import dog, registry
 
 
 def blob_image(h=128, w=128, blobs=((40, 40, 4), (90, 60, 8), (60, 100, 6))):

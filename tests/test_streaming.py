@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from slam3d_gx_tpu.backend import SLAMEnd
-from slam3d_gx_tpu.config import CameraIntrinsics, ParameterReader
-from slam3d_gx_tpu.testing import synthetic
+from slam3d_gx.backend import SLAMEnd
+from slam3d_gx.config import CameraIntrinsics, ParameterReader
+from slam3d_gx.testing import synthetic
 
 INTR = CameraIntrinsics(fx=260.0, fy=260.0, cx=160.0, cy=120.0, factor=5000.0)
 N = 13  # 12 processed frames; chunk=5 leaves a 2-frame tail path
@@ -35,8 +35,8 @@ def _params(root, **kw):
 
 
 def test_streaming_matches_per_frame(dataset, tmp_path_factory):
-    from slam3d_gx_tpu.frontend import GraphicEnd2
-    from slam3d_gx_tpu.frontend.streaming import StreamingGraphicEnd2
+    from slam3d_gx.frontend import GraphicEnd2
+    from slam3d_gx.frontend.streaming import StreamingGraphicEnd2
 
     root, traj = dataset
 
@@ -80,8 +80,8 @@ def test_streaming_matches_per_frame(dataset, tmp_path_factory):
 def test_streaming_planes(tmp_path_factory):
     """StreamingGraphicEnd: the flagship plane pipeline tracked in
     chunks; decisions line up with the per-frame GraphicEnd."""
-    from slam3d_gx_tpu.frontend import GraphicEnd
-    from slam3d_gx_tpu.frontend.streaming import StreamingGraphicEnd
+    from slam3d_gx.frontend import GraphicEnd
+    from slam3d_gx.frontend.streaming import StreamingGraphicEnd
 
     root = str(tmp_path_factory.mktemp("pstream"))
     traj = synthetic.orbit_trajectory(N, radius=0.2, yaw_amp=0.1)
@@ -123,7 +123,7 @@ def test_streaming_odometry_edges(dataset, tmp_path_factory):
     """use_odometry in streaming mode: odo_this advances per applied
     frame, so keyframes get the odometry edge at 1/sigma^2 like the
     per-frame path (reference src/GraphicEnd.cpp:330-346)."""
-    from slam3d_gx_tpu.frontend.streaming import StreamingGraphicEnd2
+    from slam3d_gx.frontend.streaming import StreamingGraphicEnd2
 
     root, traj = dataset
     gs = StreamingGraphicEnd2(_params(root, use_odometry="yes"), chunk=5,
@@ -146,8 +146,8 @@ def test_streaming_odometry_edges(dataset, tmp_path_factory):
 def test_streaming_handles_blackout(tmp_path_factory):
     """Frames the tracker cannot register (blackout) trigger the
     per-frame lost_recovery fallback mid-chunk."""
-    from slam3d_gx_tpu.frontend.streaming import StreamingGraphicEnd2
-    from slam3d_gx_tpu.io import images as img_io
+    from slam3d_gx.frontend.streaming import StreamingGraphicEnd2
+    from slam3d_gx.io import images as img_io
 
     root = str(tmp_path_factory.mktemp("blackout"))
     traj = synthetic.orbit_trajectory(12, radius=0.2, yaw_amp=0.1)
@@ -177,7 +177,7 @@ def test_streaming_chunk1_fused_per_frame(dataset, tmp_path_factory):
     """chunk=1 IS the fused per-frame mode (VERDICT r2 #5): one
     dispatch + one packed readback per frame, with the next frame's
     step speculatively dispatched while this one's records apply."""
-    from slam3d_gx_tpu.frontend.streaming import StreamingGraphicEnd2
+    from slam3d_gx.frontend.streaming import StreamingGraphicEnd2
 
     root, traj = dataset
     d = str(tmp_path_factory.mktemp("stream1"))
@@ -204,8 +204,8 @@ def test_tracker_device_rescue_logic():
     import jax
     import jax.numpy as jnp
 
-    from slam3d_gx_tpu.frontend.state import FrameFeatures, MultiPnPResult
-    from slam3d_gx_tpu.frontend.streaming import REC_WIDTH, build_tracker
+    from slam3d_gx.frontend.state import FrameFeatures, MultiPnPResult
+    from slam3d_gx.frontend.streaming import REC_WIDTH, build_tracker
 
     def mkfeat(v):
         return FrameFeatures(
@@ -268,9 +268,9 @@ def test_streaming_rescue_host_mirror(dataset, tmp_path_factory):
     inverse(r_T), robot untouched, lost reset."""
     import jax.numpy as jnp
 
-    from slam3d_gx_tpu.frontend.streaming import (REC_WIDTH,
+    from slam3d_gx.frontend.streaming import (REC_WIDTH,
                                                   StreamingGraphicEnd2)
-    from slam3d_gx_tpu.geometry import se3
+    from slam3d_gx.geometry import se3
 
     root, traj = dataset
     gs = StreamingGraphicEnd2(_params(root), chunk=3,

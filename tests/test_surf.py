@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import scipy.ndimage as ndi
 
-from slam3d_gx_tpu.ops.features import surf, registry
-from slam3d_gx_tpu.ops import match
+from slam3d_gx.ops.features import surf, registry
+from slam3d_gx.ops import match
 
 
 def _blob_image(centers_sigmas, h=240, w=320):
@@ -101,8 +101,8 @@ def _np_surf_oracle(mag, ori, rx, ry, s):
 def test_surf_descriptor_numpy_oracle(rng):
     """surf_desc's batched analytic math == a per-keypoint numpy
     reimplementation on the same gradient patches."""
-    from slam3d_gx_tpu.ops.features import common, surf_desc
-    from slam3d_gx_tpu.ops.features.sift_desc import _patch_data
+    from slam3d_gx.ops.features import common, surf_desc
+    from slam3d_gx.ops.features.sift_desc import _patch_data
 
     img = ndi.gaussian_filter(rng.random((96, 128)) * 255, 1.5).astype(
         np.float32)
@@ -127,7 +127,7 @@ def test_surf_descriptor_numpy_oracle(rng):
 def test_surf_descriptor_invariances(rng):
     """Translation keeps the descriptor close; 90-degree rotation stays
     closer than an unrelated patch (orientation normalization works)."""
-    from slam3d_gx_tpu.ops.features import common, surf_desc
+    from slam3d_gx.ops.features import common, surf_desc
 
     base = (rng.random((96, 96)) * 255).astype(np.float32)
     img = ndi.gaussian_filter(base, 2.0)
@@ -181,7 +181,7 @@ def test_surf_surf_matching_across_views():
 
 
 def test_star_detects_blobs():
-    from slam3d_gx_tpu.ops.features import star
+    from slam3d_gx.ops.features import star
 
     blobs = [(60, 80, 3.0), (120, 200, 5.0), (180, 100, 7.0)]
     img = _blob_image(blobs)
@@ -194,7 +194,7 @@ def test_star_detects_blobs():
 
 
 def test_star_suppresses_lines():
-    from slam3d_gx_tpu.ops.features import star
+    from slam3d_gx.ops.features import star
 
     img = np.zeros((240, 320), np.float32)
     img[:, 150:170] = 200.0  # vertical bar: strong center-surround on edges

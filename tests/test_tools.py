@@ -73,7 +73,7 @@ def test_generate_and_index(tmp_path):
     r = run_tool("img2pcd.py", str(tmp_path))
     assert r.returncode == 0, r.stderr
     assert (tmp_path / "pcd" / "1.pcd").exists()
-    from slam3d_gx_tpu.io import pcd as pcd_io
+    from slam3d_gx.io import pcd as pcd_io
     xyz, rgba = pcd_io.read_pcd(str(tmp_path / "pcd" / "1.pcd"))
     assert xyz.shape[0] == 16  # all depths nonzero
 
@@ -81,7 +81,7 @@ def test_generate_and_index(tmp_path):
 # --- evaluate_rpe / evaluate_ate --------------------------------------------
 
 def _write_traj(path, poses, t0=100.0):
-    from slam3d_gx_tpu.geometry import se3
+    from slam3d_gx.geometry import se3
     rows = []
     for i, T in enumerate(poses):
         d = se3.get_estimate_data(T)
@@ -90,7 +90,7 @@ def _write_traj(path, poses, t0=100.0):
 
 
 def _orbit(n, drift=0.0):
-    from slam3d_gx_tpu.geometry import se3
+    from slam3d_gx.geometry import se3
     rng = np.random.default_rng(1)
     out = []
     T = np.eye(4)
@@ -134,7 +134,7 @@ def test_evaluate_ate(tmp_path):
     est = tmp_path / "est.txt"
     poses = _orbit(20)
     # est = gt in a different gauge (rotated + shifted frame)
-    from slam3d_gx_tpu.geometry import se3
+    from slam3d_gx.geometry import se3
     G = se3.make_isometry(se3.rodrigues(np.array([0.1, 0.7, -0.2])),
                           np.array([3.0, -1.0, 2.0]))
     _write_traj(gt, poses)

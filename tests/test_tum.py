@@ -1,7 +1,7 @@
 import numpy as np
 
-from slam3d_gx_tpu.geometry import se3
-from slam3d_gx_tpu.io import tum
+from slam3d_gx.geometry import se3
+from slam3d_gx.io import tum
 
 
 def write_associate(path, n=5, with_odo=True):

@@ -23,7 +23,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if _REPO not in sys.path:
     sys.path.insert(0, _REPO)
 
-from slam3d_gx_tpu.io import images, pcd as pcd_io  # noqa: E402
+from slam3d_gx.io import images, pcd as pcd_io  # noqa: E402
 
 
 def convert(root: str, start: int, end: int,
